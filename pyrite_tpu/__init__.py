@@ -1,16 +1,16 @@
-"""pyrite-tpu: a TPU-native spectral path-tracing framework.
+"""pyrite-tpu: a spectral path-tracing framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of Ogeon/pyrite
-(reference mounted at /root/reference): wavelength-based light transport over
-wavefronts of rays sharded across TPU meshes.
+A JAX/XLA/Pallas re-design of the capabilities of Ogeon/pyrite:
+wavelength-based light transport over wavefronts of rays, sharded across
+devices.
 """
 
 import jax as _jax
 
 # Ray tracing needs full f32 precision in its (tiny) matrix products — camera
-# transforms, frame rotations, colorimetric integration. TPU matmuls default
-# to bf16 inputs, which quantizes ray directions into visible banding. The
-# MXU-heavy kernels opt into lower precision explicitly where it is safe.
+# transforms, frame rotations, colorimetric integration. Reduced-precision
+# matmul inputs (TF32 on the GPU) would quantize ray directions into visible
+# banding, so every matmul is pinned to float32.
 _jax.config.update("jax_default_matmul_precision", "float32")
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 The reference compiles expressions to a register-machine tape interpreted per
 sample with dependency-flag memoization (program/compiler.rs,
-program/execution_context.rs). On TPU the right shape is different: each
+program/execution_context.rs). On an accelerator the right shape is different: each
 expression becomes a jnp-traced function evaluated for a whole wavefront of
 rays and all spectral samples at once — vectorization subsumes the reference's
 memoization. Type promotion (number / vector / rgb) follows
@@ -61,8 +61,8 @@ class CompiledProgram:
     # shared [P, G] bank table (scene.bake_bank_tables) so material-heavy
     # scenes evaluate the whole bank with one gather instead of O(P) loops
     uses_ray_inputs: bool = False
-    # True when the DAG samples an image texture (needs large-table gathers
-    # the fused dense-bounce kernel cannot run on-chip, kernels_dense.py)
+    # True when the DAG samples an image texture (large-table gathers; the
+    # simple renderer caps its wavefront for such scenes)
     uses_texture: bool = False
 
     def __call__(self, inputs: ProgramInputs) -> jnp.ndarray:

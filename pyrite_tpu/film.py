@@ -118,12 +118,6 @@ class Film:
         return np.clip(np.rint(out * 255.0), 0, 255).astype(np.uint8)
 
 
-def save_png(path: str, image: np.ndarray):
-    from PIL import Image as PILImage
-
-    PILImage.fromarray(image, "RGB").save(path)
-
-
 # Raw-sum exposure: callers that pre-aggregate many samples per lane (e.g.
 # BDPT connections, which expose len_cam x len_lamp samples at one pixel)
 # add already-weighted value sums and weight sums directly.
@@ -148,13 +142,11 @@ def bin_lane_sums(film: Film, wavelengths, v, w):
     """Per-lane wavelength->bin binning: ([N, bins] value sums, [N, bins]
     weight sums) from [N, S] per-wavelength values/weights.
 
-    Deliberately a fused compare+select+reduce on the VPU. An einsum
-    ("ns,nsb->nb") here lowers to N tiny padded batched matmuls on the MXU,
-    which measured ~8x a whole bounce's cost at megabatch width (round-3
-    spheres_regen A/B: 5.7 vs 62.5 Mrays/s live). The reduction over S is
-    unrolled so every intermediate stays [N, bins]: the 3D [N, S, bins]
-    one-hot form invites XLA to materialize multi-GB temporaries at
-    megabatch width."""
+    Deliberately a fused elementwise compare+select+reduce: an einsum
+    ("ns,nsb->nb") here would lower to N tiny batched matrix products. The
+    reduction over S is unrolled so every intermediate stays [N, bins]: the
+    3D [N, S, bins] one-hot form invites XLA to materialize multi-GB
+    temporaries at megabatch width."""
     bins = film.wavelength_to_bin(wavelengths)  # [N, S]
     iota = jnp.arange(film.bins, dtype=bins.dtype)[None, :]
     n, s = v.shape
@@ -173,8 +165,8 @@ def expose_lanes(film: Film, acc, wt, row0, wavelengths, brightness, weights, ma
     renderers trace exactly one jittered sample per pixel per step).
 
     The only irregular axis left is wavelength -> bin; that becomes a dense
-    one-hot select-and-reduce over the S samples, which the TPU handles as
-    vector math instead of a serialized scatter."""
+    one-hot select-and-reduce over the S samples: elementwise math instead
+    of a scatter."""
     n, s = brightness.shape
     v = jnp.where(mask, brightness * weights, 0.0)
     w = jnp.where(mask, weights, 0.0)

@@ -4,8 +4,9 @@ Path tracing is embarrassingly parallel in samples, so the scaling recipe
 (SURVEY.md §5) is: replicate the scene to every chip, shard the *sample* axis
 over the mesh, keep a per-device partial film, and all-reduce the film once
 at development time. This replaces the reference's crossbeam thread pool +
-CAS film (renderer/mod.rs:120-194, film.rs:145-162) with ICI collectives and
-deterministic per-device accumulation.
+CAS film (renderer/mod.rs:120-194, film.rs:145-162) with collectives (NCCL
+over NVLink on GPUs) and deterministic per-device accumulation. The mesh is
+flat: every card reaches every other at the same rate.
 
 All three algorithms ride the same machinery (the reference runs them all
 through one TaskRunner, renderer/mod.rs:77-111): a renderer contributes a
@@ -83,8 +84,8 @@ def step_keys(key, n_devices: int, step_index: int):
 def merge_films(acc, wt):
     """Reduce per-device film shards [D, H, W, B] -> [H, W, B].
 
-    When the inputs are sharded along D, XLA lowers this to an ICI
-    all-reduce; the result is the replicated full film."""
+    When the inputs are sharded along D, XLA lowers this to an all-reduce
+    across the devices; the result is the replicated full film."""
     return acc.sum(axis=0), wt.sum(axis=0)
 
 

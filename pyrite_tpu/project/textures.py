@@ -12,7 +12,8 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
-from PIL import Image as PILImage
+
+from ..png import read_png
 
 
 def _srgb_to_linear(x: np.ndarray) -> np.ndarray:
@@ -36,16 +37,9 @@ def load_texture(path: str, linear: bool, mono: bool) -> TextureData:
         data = np.full((2, 2, 4), 0.5, np.float32)
         data[:, :, 2:] = 1.0
         return TextureData(data=data)
-    img = PILImage.open(path)
-    if img.mode in ("I;16", "I"):
-        arr = np.asarray(img, np.float32) / 65535.0
-    else:
-        if img.mode not in ("RGB", "RGBA", "L", "LA"):
-            img = img.convert("RGBA")
-        arr = np.asarray(img, np.float32) / 255.0
-
-    if arr.ndim == 2:
-        arr = arr[:, :, None]
+    pixels = read_png(path)
+    scale = 65535.0 if pixels.dtype == np.uint16 else 255.0
+    arr = pixels.astype(np.float32) / scale
 
     channels = arr.shape[2]
     if channels == 1:  # grayscale

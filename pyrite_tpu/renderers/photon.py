@@ -6,7 +6,7 @@ diffuse light-bounce chains in a kd-tree, and (3) gathers photons within a
 fixed radius around every camera vertex, multiplying the camera-side
 reflectance chain by the photon-side light chain (photon_mapping.rs:340-426).
 
-TPU formulation:
+Wavefront formulation:
   - chain walks become prefix products computed during the traces: a camera
     vertex carries partialR(lambda) = product over its ancestor chain of
     color*probability*brdf times its own color*probability (its own brdf,
@@ -267,7 +267,7 @@ def grid_prepare(p_pos, p_valid, q_pos, radius):
     """Sort photons by cell key and locate the 27 neighbor cells of each
     query: returns (order [P], sorted_keys [P], starts [N, 27], ckeys [N, 27]).
     Replaces the reference's kd-tree radius query (spatial/kd_tree.rs:47-106)
-    with a TPU-friendly sorted hash grid (cell size = gather radius)."""
+    with a sorted hash grid (cell size = gather radius)."""
     order, sorted_keys = grid_sort_photons(p_pos, p_valid, radius)
     starts, ckeys = grid_query(sorted_keys, q_pos, radius)
     return order, sorted_keys, starts, ckeys

@@ -42,7 +42,7 @@ def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, key, row0=0, r
 
     wavelengths = film.sample_wavelengths(u[:, 4 : 4 + s])
     # hero selection: swap a uniformly-chosen column into slot 0 — done with
-    # masked sums instead of take_along_axis (TPU gathers are slow)
+    # masked sums instead of take_along_axis
     hero = jnp.minimum((u[:, 4 + s] * s).astype(jnp.int32), s - 1)
     cols = jnp.arange(s)[None, :]
     is_hero = cols == hero[:, None]
@@ -180,9 +180,9 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
 # The flat wavefront wastes the 4x live-vs-executed gap on shallow scenes
 # (spheres survival after bounces 1-8: 60/16/5.8/3.5/2.4/1.9/1.6/1.4%, so
 # mean occupancy is ~24%) and the survivor pool only recovers deep-bounce
-# scenes. Per-lane shuffles at megabatch width are the forbidden operation
-# on this backend (argsort[524k] = 26 ms, permuting the state through it =
-# 300 ms — CLAUDE.md), so compaction cannot fix it. Path REGENERATION can:
+# scenes. Per-lane shuffles at megabatch width cost more than the masked
+# work they save (on the first backend; not measured on the H100), so
+# compaction cannot fix it. Path REGENERATION can:
 # every lane owns a fixed film pixel; the moment its path dies, the lane
 # exposes the finished sample into a per-lane bin accumulator (vector math,
 # no scatter) and immediately restarts a fresh stratified sample at the
@@ -202,9 +202,9 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
 # EXACT per pixel, but the lanes trace past their quota: a launch runs
 # until its slowest lane completes the per-launch quota, and every dead
 # lane restarts unconditionally in the meantime ("overshoot" — without it,
-# tail idling capped occupancy at ~23% on the spheres bench, and a
-# done->regen data edge tripped a TPU fusion cliff worth ~20 ms/iter at
-# megabatch width). Quota is enforced at EXPOSURE instead: a completed
+# tail idling capped occupancy at ~23% on the spheres scene, and a
+# done->regen data edge slowed each iteration on the first backend).
+# Quota is enforced at EXPOSURE instead: a completed
 # sample is included iff the lane's completion count is still below quota.
 # Within a lane samples complete in start order, so inclusion is exactly
 # "the first Q samples" — a deterministic selection, hence unbiased.
@@ -215,9 +215,11 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
 # Overshoot tracing costs no wall time: the loop iteration count is set by
 # the slowest lane either way, so extras ride otherwise-idle lanes.
 
+# Megabatch width of the regen wavefront: amortizes per-launch cost. Not yet
+# swept on the H100.
 REGEN_TARGET_LANES = int(
     _os.environ.get("PYRITE_TPU_REGEN_LANES", "524288")
-)  # megabatch width: amortizes the dispatch floor (A/B: 1M measured ~ same)
+)
 REGEN_MAX_PLANES = 8
 
 
@@ -229,11 +231,10 @@ def regen_enabled() -> bool:
 
 def regen_clusters_enabled() -> bool:
     """Regen for cluster (wide-BVH) scenes: the traversal is bound by
-    per-walk-iteration dispatch, so regen's occupancy win shrinks the number
+    per-walk-iteration launches, so regen's occupancy win shrinks the number
     of bounce iterations per sample (bounces / E[path length]) rather than
-    the per-iteration cost. Default ON since series6 measured it past the
-    one-shot walk on the 328k-tri terrain (1.125 vs 0.971 Mrays/s live)
-    with adaptive quotas + the soft-tail launch exit."""
+    the per-iteration cost. Default ON (it beat the one-shot walk on the
+    328k-tri terrain on the first backend; not measured on the H100)."""
     import os
 
     return os.environ.get("PYRITE_TPU_REGEN_CLUSTERS", "1") == "1"
@@ -269,9 +270,7 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
     their remainders into the next launch's quotas (exactness preserved:
     callers subtract REALIZED completions, min(done, quota), from the
     per-lane remainders), so the slowest ~1% of lanes never serialize the
-    other 99% (the measured tail cost: spheres live throughput rose 54 ->
-    115 Mrays/s as per-launch quotas grew 16 -> 150, purely from tail
-    amortization). ``spp_lane`` and ``tail_count`` are device arguments,
+    other 99%. ``spp_lane`` and ``tail_count`` are device arguments,
     so launches of any sample count share one compile.
     Returns (acc, wt, live_bounces, executed_bounces, done) — the counters
     feed bench.py's live-lane accounting; ``done`` [n] counts ALL
@@ -339,16 +338,14 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
                 # 1) expose paths that completed last bounce — but only the
                 # lane's first Q samples (done counts ALL completions; a
                 # completion is included iff the count was still short).
-                # Quota lives HERE and not on the regen mask: a done->regen
-                # data edge tripped a TPU fusion cliff worth ~20 ms/iter at
-                # megabatch width, and gating exposure keeps counts exact.
+                # Quota lives HERE and not on the regen mask: gating
+                # exposure keeps counts exact without a done->regen data
+                # edge in the loop.
                 complete = c["pend"] & ~st["alive"]
                 done = c["done"] + complete.astype(jnp.int32)
                 # ONE post-update comparison tensor serves both the exposure
-                # gate and the live counter below (tools/tpu_regen_bisect
-                # prod_shared: 15.5 vs the two-comparison body's 36.7
-                # ms/iter at 524k lanes — comparing against two different
-                # done tensors tripped a non-additive fusion cliff). On
+                # gate and the live counter below (comparing against two
+                # different done tensors fused worse on the first backend). On
                 # complete lanes done = c.done+1, so (done <= Q) there is
                 # exactly the old (c.done < Q): inclusion is unchanged
                 # first-Q, still exact and unbiased.
@@ -362,8 +359,8 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
                 # pixel. EVERY dead lane restarts, even past its quota
                 # ("overshoot"): the launch runs until the slowest lane
                 # fills its quota either way, so quota-done lanes trace
-                # discarded extras instead of idling (measured 23%
-                # occupancy without overshoot -- the tail is the loss).
+                # discarded extras instead of idling (the tail is the
+                # loss without overshoot).
                 reg = ~st["alive"]
                 o2, d2, wl2 = fresh_rays(
                     jax.random.fold_in(k_gen, c["i"]), row0
@@ -526,12 +523,10 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
 def texture_lane_cap(scene) -> int | None:
     """Regen wavefront bound for texture-program scenes, else None.
 
-    Bicubic color + normal-map gathers at megabatch width crash the TPU
-    worker (round 5: textures.lua, 1024x512 -> 524k regen lanes, died on
-    the FIRST launch both runs, while the one-shot path renders the same
-    scene clean — the regen accumulators + per-bounce 16-tap texture
-    temporaries together exceed the worker's footprint). 131k lanes keeps
-    the concurrent gather temporaries bounded."""
+    The regen accumulators plus the per-bounce 16-tap bicubic color and
+    normal-map temporaries grow with the wavefront; 131k lanes keeps the
+    concurrent gather temporaries bounded. The cap is not yet swept on the
+    H100."""
     has_tex = any(p.uses_texture for p in scene.color_programs) or any(
         getattr(p, "uses_texture", False) for p in scene.normal_programs
     )
@@ -598,15 +593,11 @@ def _render_regen(
     step = make_regen_step(scene, film, camera, cfg, rows=rows, planes=planes)
     if spp_chunk is None:
         # per-LANE quota target per launch. Bigger launches amortize what
-        # the soft tail doesn't cover. Round-4 A/B with the shared-done
-        # regen body, spheres live Mrays/s: 110.7 at lane-chunk 40, 123.0
-        # at 80, 135.9 at 160, 145.7 at 320 — still rising, but 160 keeps
-        # a launch ~6 s so previews/checkpoints land between launches
-        # (the reference spheres workload is 150 samples/lane anyway, one
-        # full launch). Cluster scenes measured flat past 64 (terrain
-        # 1.165 at 128 vs 1.14 at 64: the walk, not the tail, is the
-        # bound), and deep-bounce scenes keep shorter launches for the
-        # same watchdog/preview reasons.
+        # the soft tail doesn't cover; 160 keeps launches short enough that
+        # previews/checkpoints land between them (the reference spheres
+        # workload is 150 samples/lane anyway, one full launch). Cluster
+        # scenes (the walk, not the tail, is their bound) and deep-bounce
+        # scenes keep shorter launches. Not yet swept on the H100.
         spp_chunk = 64 if (scene.use_clusters or cfg.bounces >= POOL_MIN_BOUNCES) else 160
     base_key = jax.random.PRNGKey(seed)
     order = chunk_order(chunks)
@@ -778,9 +769,9 @@ def make_pooled_steps(scene: Scene, film: Film, camera: CameraModel, cfg: TraceC
     # Pool capacity is POOL_FACTOR x the chunk size: the host flushes
     # whenever the remaining space could not absorb a worst-case
     # (all-survive) chunk, so the in-stage scatter can never drop a
-    # survivor. The pool is deliberately large: the bounce loop is
-    # ITERATION-bound on this backend (each bounce iteration costs ~2.5-5 ms
-    # regardless of width below ~50k lanes), and a flush pays the full
+    # survivor. The pool is deliberately large: the bounce loop was
+    # ITERATION-bound on the first backend (an iteration cost about the same
+    # at any width below ~50k lanes), and a flush pays the full
     # bounce-tail depth in iterations however few lanes it holds — so
     # flushes must be rare, amortized over many pixel samples.
     pool_n = POOL_FACTOR * n

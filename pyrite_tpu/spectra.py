@@ -1,4 +1,4 @@
-"""Spectral data types and colorimetry for the TPU renderer.
+"""Spectral data types and colorimetry for the renderer.
 
 Everything radiometric in this framework is carried per-wavelength (nm).
 This module holds the host/device representations of sampled spectra, the
@@ -60,9 +60,10 @@ class ArraySpectrum:
         frac = float_index - lo.astype(float_index.dtype)
 
         if values.ndim == 1 and n <= 128 and w.ndim > 0 and w.size >= 4096:
-            # tiny-table fast path: TPU lowers bulk gathers from small tables
-            # poorly; a masked-weight contraction is pure vector math. The
-            # weight matrix has (1-frac) at lo and frac at lo+1 per row.
+            # tiny-table path: a masked-weight contraction instead of a bulk
+            # gather from a small table (the trade-off is not yet measured
+            # on the H100). The weight matrix has (1-frac) at lo and frac at
+            # lo+1 per row.
             idx = jnp.arange(n, dtype=jnp.int32)
             lo_e = lo[..., None]
             frac_e = frac[..., None]
@@ -104,9 +105,9 @@ class CurveSpectrum:
         inside = (w > xs[0]) & (w < xs[-1])
 
         if len(self.xs) <= 64 and w.ndim > 0 and w.size >= 4096:
-            # per-segment masked lerp instead of searchsorted+gather (which
-            # TPU serializes): P-1 segments evaluated in parallel, exactly one
-            # contains each wavelength
+            # per-segment masked lerp instead of searchsorted+gather: P-1
+            # segments evaluated in parallel, exactly one contains each
+            # wavelength
             x0, x1 = xs[:-1], xs[1:]
             y0, y1 = ys[:-1], ys[1:]
             we = w[..., None]

@@ -235,8 +235,8 @@ def test_photon_partialR_grid_interpolation_error(tmp_path):
         if big.any():
             errs.append(np.abs(approx - exact)[big] / exact[big])
     rel = np.concatenate(errs)
-    # measured at the default 64-point grid: p95 ~1e-7, max ~0.53% (round 4;
-    # each grid-density halving costs ~4x, and photon.render's memory budget
+    # measured at the default 64-point grid on the CPU: p95 ~1e-7, max
+    # ~0.53% (each grid-density halving costs ~4x, and photon.render's memory budget
     # keeps 64 points up to 1024x512 films)
     assert np.percentile(rel, 95) < 0.005, f"p95 interp err {np.percentile(rel, 95):.4f}"
     assert rel.max() < 0.01, f"max interp err {rel.max():.4f}"
@@ -937,7 +937,7 @@ def test_bdpt_grouped_connections_match_flat(tmp_path, monkeypatch):
     )
 
     # the unrolled group loop (PYRITE_TPU_CONN_UNROLL: Python loop instead
-    # of lax.map — the dragon-crash A/B knob) is the same math
+    # of lax.map) is the same math
     monkeypatch.setattr(bdpt_mod, "_CONN_UNROLL", 1)
     film, acc_c, wt_c = bdpt_mod.render(pd, scene, seed=6, max_samples=8)
     np.testing.assert_allclose(
@@ -951,7 +951,7 @@ def test_bdpt_grouped_connections_match_flat(tmp_path, monkeypatch):
 def test_staged_cam_walk_matches_one_shot(tmp_path, monkeypatch):
     """Cluster-scene regen-BDPT camera walks run STAGED (bounded launches
     with host-side carry — one unbounded launch at dragon scale runs
-    minutes of grouped cluster shadow walks and crashes the TPU worker).
+    minutes of grouped cluster shadow walks).
     The fold_in streams key on the global iteration counter carried across
     launches, so staging must reproduce the one-shot walk to float
     tolerance (only XLA program boundaries differ)."""
@@ -1089,7 +1089,7 @@ def test_deferred_connections_match_inline(tmp_path, monkeypatch):
         np.asarray(acc_d), np.asarray(acc_i), rtol=1e-4, atol=1e-6
     )
 
-    # staged + deferred combined (the dragon-class TPU configuration)
+    # staged + deferred combined (the dragon-class configuration)
     monkeypatch.setattr(bdpt_mod, "_CAM_ITER_CAP", 3)
     film, acc_sd, wt_sd = bdpt_mod.render(pd, scene, seed=6, max_samples=4)
     np.testing.assert_allclose(
